@@ -5,8 +5,8 @@ seeds, with a split PRNG key carried through the scan
 (src/mcdboundingmachine.py:193-203, src/mcd_cais_var.py:56-108) — written
 from the spec, not copied.
 
-bench.py measures this against cmcd_tpu's batch-first path on the same chip;
-the reported vs_baseline is tpu_native / reference_style throughput.
+bench.py measures this against the package's batch-first path on the same
+card; the reported vs_baseline is batch-first / reference-style throughput.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""cmcd_tpu: a TPU-native Controlled Monte Carlo Diffusions framework.
+"""cmcd_tpu: a Controlled Monte Carlo Diffusions framework in JAX.
 
-From-scratch JAX/XLA/Pallas implementation of the capabilities of
+From-scratch JAX/XLA implementation of the capabilities of
 shreyaspadhy/CMCD ("Transport meets Variational Inference: Controlled Monte
 Carlo Diffusions", ICLR 2024): annealed-SDE bridges from a trainable
 variational distribution to an unnormalized target, with KL and VarGrad
@@ -8,9 +8,9 @@ variational distribution to an unnormalized target, with KL and VarGrad
 and ln Z / ELBO estimation.
 
 Design: batch-first numerics (chains are a leading axis everywhere), a
-single parameterized integrator family instead of per-mode modules, chain
-sharding over a jax.sharding.Mesh, and fused Pallas time-stepping kernels
-for the hot path.
+single parameterized integrator family instead of per-mode modules, and
+chain sharding over a jax.sharding.Mesh. The time loop is a lax.scan that
+XLA compiles for whatever backend JAX runs on (GPU or CPU).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Bounding machines: parameter initialization and the ELBO/VarGrad losses.
 
 Reference: src/mcdboundingmachine.py and src/boundingmachine.py. Differences
-by design (TPU-first):
+by design (batch-first):
 - Parameters live in a typed pytree {"train": {...}, "notrain": {...}}
   instead of one ravel_pytree flat vector; the frozen subtree gets
   stop_gradient at loss time exactly like the reference

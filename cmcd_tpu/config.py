@@ -1,14 +1,16 @@
-"""Config system: ConfigDict-compatible flag surface.
+"""Config system: the reference's `--config.*` flag surface.
 
 Reference: src/configs/base.py. Same field names and defaults so reference
 recipes port verbatim (`--config.model X --config.boundmode Y ...`), same
 LR/eps hyperparameter lookup tables applied the same way
-(src/utils.py:181-204).
+(src/utils.py:181-204). The reference parsed flags with absl +
+ml_collections; ConfigDict and parse_flags below give the same surface with
+the standard library only.
 """
 
 from __future__ import annotations
 
-import ml_collections
+import ast
 
 # Per-model / per-boundmode learning rates (reference src/configs/base.py:5-63).
 LR_DICT = {
@@ -84,9 +86,47 @@ FUNNEL_EPS_DICT = {
 TRACTABLE_DISTS = ["nice", "funnel", "gmm", "many_gmm", "banana"]
 
 
-def get_config() -> ml_collections.ConfigDict:
+class ConfigDict:
+    """Attribute-access configuration: `config.N`, `config.log.jsonl`.
+
+    Fields are created by assignment (as in an unlocked ml_collections
+    ConfigDict); parse_flags only sets fields that already exist, with the
+    type of their default."""
+
+    def __init__(self, fields: dict | None = None):
+        object.__setattr__(self, "_fields", {})
+        for k, v in (fields or {}).items():
+            setattr(self, k, v)
+
+    def __getattr__(self, name):
+        try:
+            return self.__dict__["_fields"][name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __setattr__(self, name, value):
+        self._fields[name] = value
+
+    def __contains__(self, name):
+        return name in self._fields
+
+    def items(self):
+        return self._fields.items()
+
+    def __str__(self):
+        lines = []
+        for k, v in sorted(self._fields.items()):
+            if isinstance(v, ConfigDict):
+                lines.append(f"{k}:")
+                lines.extend("  " + line for line in str(v).splitlines())
+            else:
+                lines.append(f"{k}: {v!r}")
+        return "\n".join(lines)
+
+
+def get_config() -> ConfigDict:
     """Defaults matching reference src/configs/base.py:77-157."""
-    config = ml_collections.ConfigDict()
+    config = ConfigDict()
     config.boundmode = "UHA"
     config.model = "lorenz"
     config.N = 5
@@ -127,28 +167,7 @@ def get_config() -> ml_collections.ConfigDict:
 
     config.use_ema = False
 
-    # New (not in reference): fused Pallas eval path + checkpointing.
-    config.use_pallas_eval = True
-    # Fully-fused VarGrad training (Pallas forward + backward kernels);
-    # applies to MCD_CAIS_var_sn on targets with a registered kernel score.
-    config.use_pallas_train = True
-    # Reduced-precision (bf16) net storage/compute in the fused kernels
-    # (weights bf16, accumulation f32) — the idiomatic TPU number format,
-    # and what lets the 1600-D LGCP train fused (gradient within ~1e-2
-    # relative of f32; see ops/pallas_kl.py net_compute_dtype). Default True
-    # since round 4's full-recipe quality gate passed on hardware (flagship
-    # 40k-iter ln Z -0.038±0.144 bf16 vs -0.016±0.149 f32, both inside the
-    # 0.1-nat band; RESULTS.md "defaults" section) — this makes the
-    # framework's out-of-the-box training configuration the same one
-    # bench.py headlines. Set False to opt into the f32 gradient-exactness
-    # contract (fused grads bit-match jax.grad of the scan loss; the grad
-    # tests exercise that path explicitly).
-    config.bf16_fused_net = True
-    # bf16 residual stacks (trajectory/noise/gsn) in the split fused-KL
-    # backward (the 1600-D LGCP path) — halves the reverse sweep's stack
-    # streaming. Off by default pending the quality gate; see
-    # ops/fused_train._make_evolve_kl bf16_residuals.
-    config.bf16_residuals = False
+    # New (not in reference): checkpointing + resume.
     config.checkpoint_dir = ""
     config.checkpoint_every = 0  # 0 = disabled
     # Optimizer steps fused into one jitted dispatch (0 = auto, up to 100;
@@ -187,7 +206,7 @@ def get_config() -> ml_collections.ConfigDict:
         config.loc_scaling = 40
 
     # Logging
-    config.log = ml_collections.ConfigDict()
+    config.log = ConfigDict()
     config.log.every = 0  # 0 = auto (0.1% of iters)
     config.log.jsonl = ""  # path for JSONL metrics; "" = stdout summary only
 
@@ -212,3 +231,73 @@ def apply_lookup_tables(config) -> dict:
             % (config.model, config.boundmode)
         )
         return {}
+
+
+def _parse_value(text: str, default, flag: str):
+    """Convert a flag's text to the type of the field's default."""
+    try:
+        if isinstance(default, bool):
+            low = text.lower()
+            if low in ("true", "1"):
+                return True
+            if low in ("false", "0"):
+                return False
+            raise ValueError(text)
+        if isinstance(default, int):
+            return int(text)
+        if isinstance(default, float):
+            return float(text)
+        if isinstance(default, (list, tuple)):
+            value = ast.literal_eval(text)
+            if isinstance(value, (int, float)):
+                value = [value]
+            if not isinstance(value, (list, tuple)):
+                raise ValueError(text)
+            if default:
+                value = [type(default[0])(v) for v in value]
+            return type(default)(value)
+        return text
+    except (ValueError, SyntaxError) as e:
+        raise ValueError(
+            f"{flag}: cannot parse {text!r} as {type(default).__name__}"
+        ) from e
+
+
+def parse_flags(argv, config: ConfigDict | None = None) -> ConfigDict:
+    """Apply reference-style flags to `config` (default: get_config()).
+
+    Accepted forms: `--config.x=v`, `--config.x v`, `--config.log.jsonl=p`;
+    booleans also as `--config.x` (True) and `--noconfig.x` (False). Lists
+    take a Python literal (`--config.fully_connected_units="[128, 128]"`).
+    An unknown field or a value of the wrong type raises ValueError."""
+    config = get_config() if config is None else config
+    args = list(argv)
+    while args:
+        arg = args.pop(0)
+        negated = arg.startswith("--noconfig.")
+        if not (negated or arg.startswith("--config.")):
+            raise ValueError(f"unknown flag {arg!r} (expected --config.<field>)")
+        name, has_eq, text = arg[len("--noconfig." if negated else "--config."):].partition("=")
+        *parents, leaf = name.split(".")
+        node = config
+        for p in parents:
+            node = getattr(node, p, None)
+            if not isinstance(node, ConfigDict):
+                raise ValueError(f"unknown config field {name!r}")
+        if not isinstance(node, ConfigDict) or leaf not in node or isinstance(
+            getattr(node, leaf), ConfigDict
+        ):
+            raise ValueError(f"unknown config field {name!r}")
+        default = getattr(node, leaf)
+        if negated or (isinstance(default, bool) and not has_eq):
+            if not isinstance(default, bool) or has_eq:
+                raise ValueError(f"{arg}: only a boolean field takes this form")
+            value = not negated
+        else:
+            if not has_eq:
+                if not args:
+                    raise ValueError(f"{arg}: missing value")
+                text = args.pop(0)
+            value = _parse_value(text, default, f"--config.{name}")
+        setattr(node, leaf, value)
+    return config

@@ -1,10 +1,9 @@
 """Batched elementary distributions.
 
-TPU-native counterparts of the reference's per-chain distribution helpers
-(reference: src/vardist/diag_gauss.py, src/momdist.py). Everything here is
-written batch-first: `z` is always `(N, dim)` and log-probs return `(N,)`.
-That keeps the hot path as large fused VPU ops instead of vmapped scalar
-programs.
+Batch-first counterparts of the reference's per-chain distribution helpers
+(reference: src/vardist/diag_gauss.py, src/momdist.py): `z` is always
+`(N, dim)` and log-probs return `(N,)`. That keeps the hot path as large
+batched elementwise ops and reductions instead of vmapped scalar programs.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import jax.numpy as jnp
 
 # Plain Python float: a module-scope jnp constant would initialize the JAX
 # backend at import time, which breaks entry points that need to select the
-# platform (CPU vs TPU) before first device use (e.g. dryrun_multichip).
+# platform (e.g. the CPU) before first device use (e.g. dryrun_multichip).
 LOG_2PI = math.log(2.0 * math.pi)
 
 

@@ -72,8 +72,8 @@ def evolve_overdamped(
     (src/mcd_cais.py:52).
 
     noise: optional (nbridges, N, dim) pre-drawn standard normals replacing
-    the per-step PRNG draws — used for bit-level equivalence tests against
-    the fused Pallas kernel (ops/pallas_overdamped.py).
+    the per-step PRNG draws (for tests and for callers that draw the noise
+    ahead of the loop).
     """
     n = z.shape[0]
 

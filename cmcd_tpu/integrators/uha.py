@@ -23,8 +23,8 @@ def evolve_uha(key, z, betas, params, ctx: IntegratorContext, noise=None):
 
     delta_H: (nbridges, N) per-bridge energy errors (diagnostic only).
     noise: optional (nbridges + 1, N, dim) normals — noise[0] the initial
-    momentum base draw, noise[1:] the per-bridge refresh draws (for
-    equivalence tests vs ops/pallas_uha.py).
+    momentum base draw, noise[1:] the per-bridge refresh draws (for tests
+    and for callers that draw the noise ahead of the loop).
     """
     n, dim = z.shape
     md = params["md"]  # momentum logscale, (dim,)

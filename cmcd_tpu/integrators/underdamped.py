@@ -54,8 +54,8 @@ def evolve_underdamped(
     corrections are included in w_delta.
 
     noise: optional (nbridges + 1, N, dim) normals — noise[0] replaces the
-    initial momentum draw, noise[1:] the per-step refresh draws (for
-    bit-level equivalence tests vs ops/pallas_underdamped.py).
+    initial momentum draw, noise[1:] the per-step refresh draws (for tests
+    and for callers that draw the noise ahead of the loop).
     """
     n, dim = z.shape
     apply_sn = ctx.apply_sn

@@ -1,10 +1,11 @@
 """Experiment driver CLI.
 
 Reference: src/main.py. Same flag surface (--config.model, --config.boundmode,
---config.N, --config.nbridges, ...; absl + ml_collections config_flags), same
-phases: [MFVI pretrain] -> mode init -> train -> eval (30x500) -> W2 for
-tractable targets -> artifact dump. New capabilities: fused Pallas eval path,
-periodic orbax checkpointing + resume, JSONL metrics, no wandb requirement.
+--config.N, --config.nbridges, ...; parsed by cmcd_tpu.config.parse_flags),
+same phases: [MFVI pretrain] -> mode init -> train -> eval (30x500) -> W2 for
+tractable targets -> artifact dump. New capabilities: chain sharding over
+every visible device, periodic checkpointing + resume, JSONL metrics, no
+wandb requirement.
 
 Run e.g.:
   python -m cmcd_tpu.main --config.model funnel --config.boundmode MCD_CAIS_sn \
@@ -15,24 +16,33 @@ from __future__ import annotations
 
 import os
 import pickle
+import sys
 
 import jax
-import jax.numpy as jnp
-from absl import app
-import ml_collections.config_flags
 
 from cmcd_tpu import bounds
-from cmcd_tpu.config import TRACTABLE_DISTS, apply_lookup_tables
+from cmcd_tpu.config import apply_lookup_tables, parse_flags
 from cmcd_tpu.targets import load_target
 from cmcd_tpu.train import evaluate, mfvi_pretrain, train
 from cmcd_tpu.utils import MetricLogger, ThroughputMeter, calculate_w2_distances
+from cmcd_tpu.utils.compile_cache import enable_compile_cache
 
-_CONFIG = ml_collections.config_flags.DEFINE_config_file(
-    "config",
-    os.path.join(os.path.dirname(__file__), "config.py"),
-    "Training configuration.",
-    lock_config=False,
-)
+
+def make_setup(config, dim: int) -> bounds.CMCDSetup:
+    """The bound's static configuration from the config's fields."""
+    return bounds.CMCDSetup(
+        mode=config.boundmode,
+        dim=dim,
+        nbridges=config.nbridges,
+        eps_schedule=config.eps_schedule,
+        grad_clipping=config.grad_clipping,
+        lfsteps=config.lfsteps,
+        remat_steps=config.remat_steps,
+        emb_dim=config.emb_dim,
+        nlayers=config.nlayers,
+        nn_arch=config.nn_arch,
+        fully_connected_units=tuple(config.fully_connected_units),
+    )
 
 
 def run_experiment(config, logger: MetricLogger | None = None):
@@ -66,19 +76,7 @@ def run_experiment(config, logger: MetricLogger | None = None):
 
     # ---- Mode init (reference main.py:115-180) ---------------------------
     mode = config.boundmode
-    setup = bounds.CMCDSetup(
-        mode=mode,
-        dim=dim,
-        nbridges=config.nbridges,
-        eps_schedule=config.eps_schedule,
-        grad_clipping=config.grad_clipping,
-        lfsteps=config.lfsteps,
-        remat_steps=config.remat_steps,
-        emb_dim=config.emb_dim,
-        nlayers=config.nlayers,
-        nn_arch=config.nn_arch,
-        fully_connected_units=tuple(config.fully_connected_units),
-    )
+    setup = make_setup(config, dim)
     trainable = bounds.default_trainable(
         mode, config.train_eps, config.train_vi, config.train_betas
     )
@@ -96,9 +94,9 @@ def run_experiment(config, logger: MetricLogger | None = None):
     # ---- Multi-device: shard the chain axis over all devices -------------
     # (new capability vs the single-device reference, SURVEY.md §2c). Chains
     # are iid, so this is pure data parallelism over a 1-D mesh; losses and
-    # ln Z reduce via XLA collectives over ICI.
+    # ln Z reduce via XLA collectives (NCCL over NVLink between GPUs).
     train_loss_fn = None
-    mesh = None
+    eval_elbo_fn = None
     if jax.device_count() > 1:
         from cmcd_tpu import parallel
 
@@ -111,94 +109,20 @@ def run_experiment(config, logger: MetricLogger | None = None):
             )
         mesh = parallel.make_chain_mesh()
         train_loss_fn = parallel.sharded_loss_for_mode(mode, mesh)
-        print(f"Sharding {config.N} chains over {ndev} devices.")
-
-    # Fused Pallas paths where supported (overdamped modes on targets with a
-    # registered transposed score; ops/fused.py).
-    eval_elbo_fn = None
-    if config.use_pallas_eval and jax.default_backend() == "tpu":
-        from cmcd_tpu.ops import compute_elbos_fused, supports_fused
-
-        if supports_fused(setup, target):
-            eval_elbo_fn = lambda p, k, n: compute_elbos_fused(p, k, n, setup, target)
-            print("Using fused Pallas evaluation path.")
-    # Fully-fused VarGrad training (Pallas forward + backward kernels,
-    # ops/fused_train.py); with a mesh, each device runs the kernels on its
-    # chain shard (parallel.sharded_var_bound_pallas).
-    if config.use_pallas_train and jax.default_backend() == "tpu":
-        from cmcd_tpu.ops.fused import fused_train_recommended
-
-        bf16_net = bool(config.bf16_fused_net)
-        # Recommended = supported at this batch size AND measured faster
-        # than the XLA scan (large-net split-sweep targets fall back to the
-        # scan below its N~100 crossover; see fused_train_recommended).
-        # Under a mesh the kernels run on the PER-DEVICE chain shard
-        # (shard_map), so the VMEM caps and the fused/scan crossover must
-        # be judged against chains-per-device, not global N.
-        n_gate = int(config.N) // (
-            jax.device_count() if mesh is not None else 1
-        )
-        if fused_train_recommended(setup, target, n_gate,
-                                   bf16_net=bf16_net):
-            if mode == "MCD_CAIS_var_sn":
-                if mesh is not None:
-                    from cmcd_tpu import parallel
-
-                    train_loss_fn = lambda p, k, n, c, s: (
-                        parallel.sharded_var_bound_pallas(
-                            p, k, n, c, s, target, mesh=mesh,
-                            bf16_net=bf16_net,
-                        )
-                    )
-                    print("Using SHARDED fused Pallas training path.")
-                else:
-                    from cmcd_tpu.ops.fused_train import var_bound_pallas
-
-                    train_loss_fn = lambda p, k, n, c, s: var_bound_pallas(
-                        p, k, n, c, s, target, bf16_net=bf16_net
-                    )
-                    print(
-                        "Using fused Pallas training path "
-                        "(forward + backward kernels)."
-                    )
-            else:
-                # KL modes: fused forward + reverse-sweep BPTT backward.
-                if mesh is not None:
-                    from cmcd_tpu import parallel
-
-                    train_loss_fn = lambda p, k, n, c, s: (
-                        parallel.sharded_kl_bound_pallas(
-                            p, k, n, c, s, target, mesh=mesh,
-                            bf16_net=bf16_net,
-                        )
-                    )
-                    print("Using SHARDED fused Pallas KL training path.")
-                else:
-                    from cmcd_tpu.ops.fused_train import kl_bound_pallas
-
-                    bf16_res = bool(config.bf16_residuals)
-                    train_loss_fn = lambda p, k, n, c, s: kl_bound_pallas(
-                        p, k, n, c, s, target, bf16_net=bf16_net,
-                        bf16_residuals=bf16_res,
-                    )
-                    print(
-                        "Using fused Pallas KL training path "
-                        "(BPTT reverse-sweep kernel"
-                        + (", bf16 net" if bf16_net else "")
-                        + ")."
-                    )
-    if eval_elbo_fn is None and mesh is not None:
-        from cmcd_tpu import parallel
-
         eval_elbo_fn = lambda p, k, n: parallel.sharded_compute_elbos(
             p, k, n, ctx, setup, mesh
         )
+        print(f"Sharding {config.N} chains over {ndev} devices.")
 
     meter = ThroughputMeter(config.N, config.nbridges)
 
     # Training-time visualization + W2 (reference plots samples and W2 every
     # 1% of iters, src/opt.py:109-120, src/utils.py:136-178).
     plot_w2_ref = None
+    if config.plot_dir:
+        from cmcd_tpu.utils import plotting
+
+        plotting.require_matplotlib()
     if config.plot_dir and target.sample is not None:
         n_w2 = min(config.n_sinkhorn, config.N)
         plot_w2_ref = target.sample(jax.random.PRNGKey(3), n_w2)
@@ -282,6 +206,8 @@ def run_experiment(config, logger: MetricLogger | None = None):
         # run_all keeps int/float only).
         "samples": out["samples"],
         "neg_elbos": out["neg_elbos"],
+        # The TrainResult: per-step losses, per-call times, divergence.
+        "train": result,
     }
 
     if config.use_ema and result.ema_params is not None:
@@ -354,10 +280,14 @@ def run_experiment(config, logger: MetricLogger | None = None):
     return results
 
 
-def main(argv):
-    del argv
-    run_experiment(_CONFIG.value)
+def main(argv=None):
+    try:
+        config = parse_flags(sys.argv[1:] if argv is None else argv)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    enable_compile_cache()
+    run_experiment(config)
 
 
 if __name__ == "__main__":
-    app.run(main)
+    main()

@@ -3,8 +3,8 @@
 Reference parity (src/nn.py, src/nn_dds.py) with a batch-first apply
 signature: apply(params, x, i) takes x of shape (N, x_dim + rho_dim) and the
 bridge index i (int32 scalar), returning (N, x_dim). The batched layout makes
-every layer a single (N, in) @ (in, out) matmul on the MXU instead of N
-vmapped vector-matrix products.
+every layer a single (N, in) @ (in, out) matmul instead of N vmapped
+vector-matrix products.
 """
 
 from cmcd_tpu.networks.geffner import build_geffner_network

@@ -75,8 +75,7 @@ def build_geffner_network(x_dim, emb_dim, nbridges, rho_dim=0, nlayers=2):
         per layer (a vmap over steps emits S tiny batched matmuls and is
         latency-bound). The embedding gather touches only S rows and its
         gradient is a cheap per-block reduction — a per-row gather over
-        S*N rows would backprop through a giant scatter-add, which
-        serializes on TPU.
+        S*N rows would backprop through a scatter-add over S*N rows.
         """
         s, n, xd = x.shape
         emb = params["emb"][jnp.clip(steps, 0, nbridges - 1)]  # (S, emb_dim)

@@ -2,24 +2,22 @@ from cmcd_tpu.parallel.sharding import (
     CHAIN_AXIS,
     make_chain_mesh,
     replicate,
+    sequential_loss_for_mode,
     sharded_compute_elbos,
     sharded_kl_bound,
     sharded_ln_z,
     sharded_loss_for_mode,
     sharded_var_bound,
-    sharded_kl_bound_pallas,
-    sharded_var_bound_pallas,
 )
 
 __all__ = [
     "CHAIN_AXIS",
     "make_chain_mesh",
     "replicate",
+    "sequential_loss_for_mode",
     "sharded_compute_elbos",
     "sharded_kl_bound",
     "sharded_ln_z",
     "sharded_loss_for_mode",
     "sharded_var_bound",
-    "sharded_kl_bound_pallas",
-    "sharded_var_bound_pallas",
 ]

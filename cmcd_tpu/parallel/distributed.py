@@ -1,11 +1,11 @@
-"""Multi-host / multi-slice setup helpers.
+"""Multi-host setup helpers.
 
-The reference is single-process (SURVEY.md §2c). For pod-scale runs the
-chain axis extends across hosts: call initialize_distributed() once per
+The reference is single-process (SURVEY.md §2c). For runs across hosts the
+chain axis extends over every process: call initialize_distributed() once per
 process before any JAX computation, then build the chain mesh over
-jax.devices() — ICI within a slice, DCN across slices. Chains are iid so
-the only cross-device traffic is the loss/lnZ reductions (scalars per
-device), making multi-slice scaling essentially free.
+jax.devices() — NVLink between the GPUs of a host, the network between
+hosts. Chains are iid, so the only cross-device traffic is the loss/lnZ
+reductions (scalars per device).
 """
 
 from __future__ import annotations
@@ -15,10 +15,11 @@ import jax
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
-    """jax.distributed.initialize with env-based autodetection by default.
+    """jax.distributed.initialize.
 
-    On Cloud TPU pods the arguments are discovered automatically; pass them
-    explicitly for other clusters.
+    Without arguments JAX reads them from a cluster manager's environment
+    (e.g. SLURM); on a machine with none, pass the coordinator address
+    (`host:port`), the number of processes and this process's id.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -1,10 +1,12 @@
 """Multi-chip chain parallelism.
 
 The reference is strictly single-device (SURVEY.md §2c: no pmap/pjit/psum
-anywhere). Chains are iid, so the TPU-native scaling story is pure data
-parallelism over a 1-D mesh: each device evolves its slice of the chain
-batch locally (shard_map), and the scalar reductions (mean/variance for the
-losses, logsumexp for ln Z) are done by XLA collectives over ICI.
+anywhere). Chains are iid, so scaling is pure data parallelism over a 1-D
+mesh: each device evolves its slice of the chain batch locally (shard_map),
+and the scalar reductions (mean/variance for the losses, logsumexp for ln Z)
+are XLA collectives, which run through NCCL over NVLink between the GPUs of
+one host. Every GPU reaches every other at the same rate, so the mesh
+follows the chain axis alone.
 
 Params (variational dist, schedules, score nets) are tiny and replicated.
 """
@@ -85,111 +87,35 @@ def sharded_loss_for_mode(mode: str, mesh: Mesh):
     return functools.partial(base, mesh=mesh)
 
 
-def sharded_var_bound_pallas(
-    params, key, n_chains, ctx, setup, target, *, mesh,
-    block=None, noise=None, interpret=False, bf16_net=False,
-):
-    """Multi-chip fused VarGrad training loss: each device runs the fused
-    Pallas forward (and, under autodiff, the fused backward) kernel on its
-    chain shard; the VarGrad variance reduces globally via XLA collectives,
-    and shard_map's transpose psums the replicated parameter gradients.
+def sequential_loss_for_mode(mode: str, n_shards: int):
+    """The plain reference for sharded_loss_for_mode on n_shards devices:
+    the same chain shards, drawn from the same fold_in(key, shard) streams,
+    computed one after another in one program on one device."""
 
-    noise: optional (nbridges, n_chains, dim) injected normals, sharded along
-    the chain axis (device d consumes its local slice) — used by the CPU
-    equivalence tests (the TPU interpreter stubs the in-kernel PRNG).
-    """
-    from cmcd_tpu.ops.fused_train import neg_elbos_pallas
+    def loss_fn(params, key, n_chains, ctx, setup):
+        if n_chains % n_shards != 0:
+            raise ValueError(f"n_chains={n_chains} not divisible by {n_shards}")
+        parts = [
+            bounds.compute_elbos(
+                params, jax.random.fold_in(key, d), n_chains // n_shards,
+                ctx, setup,
+            )
+            for d in range(n_shards)
+        ]
+        neg_elbos = jnp.concatenate([ne for ne, _ in parts])
+        z = jnp.concatenate([zz for _, zz in parts])
+        if "var" in mode:
+            loss = jnp.clip(jnp.var(neg_elbos, ddof=0), -1e7, 1e7)
+        else:
+            loss = jnp.mean(neg_elbos)
+        return loss, (neg_elbos, z)
 
-    ndev = mesh.shape[CHAIN_AXIS]
-    if n_chains % ndev != 0:
-        raise ValueError(f"n_chains={n_chains} not divisible by {ndev} devices")
-    local_n = n_chains // ndev
-
-    noise_specs = (P(None, CHAIN_AXIS, None),) if noise is not None else ()
-
-    @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(),) + noise_specs,
-        out_specs=(P(CHAIN_AXIS), P(CHAIN_AXIS)),
-        # pallas_call inside shard_map cannot annotate its outputs' varying
-        # mesh axes; the kernel outputs are plainly per-chain (device-local).
-        check_vma=False,
-    )
-    def local(params, *local_noise):
-        idx = jax.lax.axis_index(CHAIN_AXIS)
-        local_key = jax.random.fold_in(key, idx)
-        return neg_elbos_pallas(
-            params, local_key, local_n, ctx, setup, target,
-            block=block,
-            noise=local_noise[0] if local_noise else None,
-            interpret=interpret,
-            bf16_net=bf16_net,
-        )
-
-    args = (params,) + ((noise,) if noise is not None else ())
-    try:
-        ctx_mgr = jax.set_mesh(mesh)
-    except ValueError:
-        neg_elbos, z = local(*args)
-    else:
-        with ctx_mgr:
-            neg_elbos, z = local(*args)
-    loss = jnp.clip(jnp.var(neg_elbos, ddof=0), -1e7, 1e7)
-    return loss, (neg_elbos, z)
-
-
-def sharded_kl_bound_pallas(
-    params, key, n_chains, ctx, setup, target, *, mesh,
-    block=None, noise=None, interpret=False, bf16_net=False,
-    time_block=None,
-):
-    """Multi-chip fused KL training loss: each device runs the fused Pallas
-    forward (and, under autodiff, the reverse-sweep BPTT backward) kernel on
-    its chain shard; the mean reduces globally via XLA collectives, and
-    shard_map's transpose psums the replicated parameter gradients."""
-    from cmcd_tpu.ops.fused_train import neg_elbos_pallas_kl
-
-    ndev = mesh.shape[CHAIN_AXIS]
-    if n_chains % ndev != 0:
-        raise ValueError(f"n_chains={n_chains} not divisible by {ndev} devices")
-    local_n = n_chains // ndev
-
-    noise_specs = (P(None, CHAIN_AXIS, None),) if noise is not None else ()
-
-    @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(),) + noise_specs,
-        out_specs=(P(CHAIN_AXIS), P(CHAIN_AXIS)),
-        check_vma=False,
-    )
-    def local(params, *local_noise):
-        idx = jax.lax.axis_index(CHAIN_AXIS)
-        local_key = jax.random.fold_in(key, idx)
-        return neg_elbos_pallas_kl(
-            params, local_key, local_n, ctx, setup, target,
-            block=block,
-            noise=local_noise[0] if local_noise else None,
-            interpret=interpret,
-            bf16_net=bf16_net,
-            time_block=time_block,
-        )
-
-    args = (params,) + ((noise,) if noise is not None else ())
-    try:
-        ctx_mgr = jax.set_mesh(mesh)
-    except ValueError:
-        neg_elbos, z = local(*args)
-    else:
-        with ctx_mgr:
-            neg_elbos, z = local(*args)
-    return jnp.mean(neg_elbos), (neg_elbos, z)
+    return loss_fn
 
 
 def sharded_ln_z(neg_elbos):
     """ln Z = logsumexp(-neg_elbos) - log N over a (possibly sharded) batch.
-    Under jit, XLA lowers the reduction to max-psum + sum-psum over ICI."""
+    Under jit, XLA lowers the reduction to a max and a sum all-reduce."""
     n = neg_elbos.shape[0]
     return logsumexp(-neg_elbos) - jnp.log(n)
 

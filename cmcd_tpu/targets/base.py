@@ -18,10 +18,8 @@ class Target:
     dim: int
     log_prob: Callable  # (N, dim) -> (N,)
     sample: Optional[Callable] = None  # (key, n) -> (n, dim)
-    # Construction kwargs (e.g. funnel sig, many_gmm n_mixes/loc_scaling).
-    # The fused-kernel gradient registry (ops/target_grads.py) consumes these
-    # so a non-default target either gets the RIGHT hand-derived gradient or
-    # cleanly falls back to the XLA scan path — never a silently wrong density.
+    # Construction kwargs (e.g. funnel sig, many_gmm n_mixes/loc_scaling),
+    # recorded so tools can rebuild or inspect exactly this density.
     params: dict = dataclasses.field(default_factory=dict)
 
     @property

@@ -44,7 +44,7 @@ def make_gmm(config=None) -> Target:
     )
 
     # Tiny fixed 2x2 solves: precompute L^{-1} once, whiten with an einsum
-    # (a per-sample triangular solve is pointless on TPU).
+    # (one batched contraction instead of a per-sample triangular solve).
     inv_chols = jnp.linalg.inv(chols)  # (3, 2, 2)
 
     def raw_log_density(x):

@@ -56,8 +56,7 @@ def make_banana(curvature: float = 0.03) -> Target:
         dim=2,
         log_prob=log_prob,
         sample=sample,
-        # Recorded so the fused-kernel gradient registry (ops/target_grads.py)
-        # integrates exactly this density for non-default curvatures.
+        # Recorded so tools can rebuild exactly this density.
         params={"curvature": curvature},
     )
 
@@ -184,9 +183,8 @@ def make_lorenz() -> Target:
         dim=dim,
         log_prob=log_prob,
         # The concrete observation vectors (self-generated, see module
-        # docstring) are recorded so the transposed-score builder
-        # (ops/target_grads.make_lorenz_grad_t) differentiates exactly this
-        # density.
+        # docstring) are recorded so tools (experiments/lorenz_anchor.py)
+        # work on exactly this density.
         params={
             "num_timesteps": num_timesteps,
             "dt": dt,

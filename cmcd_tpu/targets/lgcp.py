@@ -4,13 +4,14 @@ Reference: src/model_handler.py:287-409 + src/cp_utils.py (itself derived
 from annealed_flow_transport's cp_utils). Same discretization (40x40 grid),
 kernel (sigma^2 = 1.91, length scale 1/33), and Poisson likelihood.
 
-TPU-first design changes (identical math):
+Design changes (identical math):
 - The Gram matrix is built with one vectorized pairwise-distance broadcast
   instead of a vmap-of-vmap of a scalar kernel (src/cp_utils.py:53-55).
-- The unwhitened prior quadratic form uses a precomputed Sigma^{-1} dense
-  matmul (MXU) instead of a per-evaluation triangular solve
-  (src/cp_utils.py:132-155) — triangular solves serialize badly on TPU and
-  appear inside every SDE step via grad(U).
+- The unwhitened prior quadratic form uses a precomputed L^{-1} dense
+  matmul instead of a per-evaluation triangular solve
+  (src/cp_utils.py:132-155) — a triangular solve is sequential along the
+  1600 rows and appears inside every SDE step via grad(U), where a (N, 1600)
+  x (1600, 1600) product is one library matmul.
 - log_prob is natively batched: (N, 1600) -> (N,).
 """
 
@@ -19,11 +20,19 @@ from __future__ import annotations
 import os
 
 import numpy as onp
+import jax
 import jax.numpy as jnp
 
 from cmcd_tpu.targets.base import Target
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
+
+# The two 1600 x 1600 products run at full float32 precision. At a GPU's
+# default (TF32 inputs) their 1600-term sums put the unwhitened log-density
+# 1.9e-4 off in relative terms on 128 points from the chains' initial
+# distribution (chip_smoke.py phase 5c, NVIDIA H100 80GB HBM3 at 400 W),
+# past the 1e-4 this target is held to.
+_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def get_bin_counts(points: onp.ndarray, num_bins_per_dim: int) -> onp.ndarray:
@@ -79,7 +88,7 @@ def make_lgcp(use_whitened: bool = False, file_path: str | None = None, num_dim:
     gram = gram_matrix(bin_vals, signal_variance, num_grid_per_dim, beta)
     cholesky_gram = onp.linalg.cholesky(gram)
     # L^{-1} once on host (float64): the prior quadratic form becomes
-    # ||L^{-1}(z - mu)||^2 — one dense matmul (MXU) and numerically better
+    # ||L^{-1}(z - mu)||^2 — one dense matmul and numerically better
     # than a Sigma^{-1} quadratic form (squaring happens after the matmul).
     chol_inv = onp.linalg.inv(cholesky_gram)
 
@@ -94,14 +103,14 @@ def make_lgcp(use_whitened: bool = False, file_path: str | None = None, num_dim:
     def whitened_log_prob(white):
         """white: (N, D) -> (N,) (src/model_handler.py:375-384)."""
         prior = white_log_normalizer - 0.5 * jnp.sum(white * white, axis=-1)
-        latents = white @ chol.T + mu_zero
+        latents = jnp.matmul(white, chol.T, precision=_PRECISION) + mu_zero
         return prior + poisson_process_log_likelihood(
             latents, poisson_a, flat_bin_counts
         )
 
     def unwhitened_log_prob(latents):
         """latents: (N, D) -> (N,) (src/model_handler.py:386-396)."""
-        white = (latents - mu_zero) @ chol_inv.T
+        white = jnp.matmul(latents - mu_zero, chol_inv.T, precision=_PRECISION)
         prior = unwhite_log_normalizer - 0.5 * jnp.sum(white * white, axis=-1)
         return prior + poisson_process_log_likelihood(
             latents, poisson_a, flat_bin_counts

@@ -129,10 +129,7 @@ def make_nice(
         dim=dim,
         log_prob=log_prob,
         sample=sample,
-        # The concrete flow parameters are recorded so the transposed-score
-        # builder (ops/target_grads.make_nice_grad_t) differentiates exactly
-        # this density — the registry's "never a silently wrong density"
-        # contract (a nice target with different params and no flow_params
-        # entry falls back to the XLA scan path).
+        # The concrete flow parameters are recorded so tools can rebuild
+        # exactly this density.
         params={"flow_params": params, "im_size": im_size},
     )

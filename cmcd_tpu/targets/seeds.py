@@ -24,7 +24,8 @@ from cmcd_tpu.distributions import LOG_2PI
 from cmcd_tpu.targets.base import Target
 
 # numpy (not jnp) constants so importing this module never initializes the
-# JAX backend (platform selection must stay possible after import).
+# JAX backend (choosing the platform, GPU or CPU, must stay possible after
+# import).
 _R = onp.array(
     [10, 23, 23, 26, 17, 5, 53, 55, 32, 46, 10, 8, 10, 8, 23, 0, 3, 22, 15, 32, 3],
     onp.float32,

@@ -35,8 +35,7 @@ def evaluate(
     reported values are means over s with stds (src/utils.py:219-248).
 
     elbo_fn: optional (params, key, n) -> (neg_elbos, z) override — e.g. the
-    fused Pallas path (ops.compute_elbos_fused) or a sharded one
-    (parallel.sharded_compute_elbos).
+    sharded one (parallel.sharded_compute_elbos).
     """
     keys = jax.random.split(key, n_input_dist_seeds)
 

@@ -1,12 +1,12 @@
 """const_hoisted_jit: jit without embedded array constants.
 
-Measured on this TPU stack: a jitted function whose HLO embeds array
-constants (anything a traced function closes over — target parameters,
-beta grids, frozen params) pays a fixed ~30 ms penalty PER EXECUTION through
-the runtime, regardless of constant size; the identical computation with all
-arrays passed as arguments runs in microseconds. This wrapper traces the
-function once, extracts the jaxpr constants, keeps them device-resident, and
-feeds them back as ordinary arguments on every call.
+A jitted function whose HLO embeds array constants (anything a traced
+function closes over — target parameters, beta grids, frozen params) carries
+them inside the executable, which lengthens compilation and can add a fixed
+cost to every execution. This wrapper traces the function once, extracts the
+jaxpr constants, keeps them device-resident, and feeds them back as ordinary
+arguments on every call. Whether it still pays on the GPU is an open
+question until the benchmark measures it.
 
 Use for hot eval/sampling entry points whose targets close over constants
 (every target in the zoo does).

@@ -14,12 +14,23 @@ import numpy as onp
 
 
 def _get_plt():
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError(
+            "plotting (--config.plot_dir) needs matplotlib, which is not "
+            "installed: install it or leave --config.plot_dir empty"
+        ) from e
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def require_matplotlib():
+    """Fail at start-up, not after training, when plots cannot be made."""
+    _get_plt()
 
 
 def make_grid(x, im_size: int, n: int = 16, path: Optional[str] = None, wandb_run=None,

@@ -3,7 +3,7 @@
 The reference's quality baseline is a 9-target x K in {8,16,32,64,128,256}
 ELBO table hardcoded in /root/reference/src/notebooks/plotting_rebuttal.ipynb
 (code cell 18; transcribed in BASELINE.md). This runner executes the sweep
-on THIS framework's fused paths and emits one artifact
+on THIS framework's training path and emits one artifact
 (experiments/data/baseline_grid.json + a markdown table) with the reference
 row alongside each measured row, so curve SHAPE (monotone improvement in K,
 same ballpark) can be checked mechanically rather than from scattered
@@ -77,8 +77,7 @@ TARGET_FLAGS = {
     "log_ionosphere": dict(_POSTERIOR),
     "seeds": dict(_POSTERIOR),
     "brownian": dict(_POSTERIOR),
-    "lgcp": dict(_POSTERIOR, N=20, lr=1e-4, bf16_fused_net=True,
-                 n_samples=100),
+    "lgcp": dict(_POSTERIOR, N=20, lr=1e-4, n_samples=100),
     # lorenz: observations are self-generated (inference_gym absent offline
     # — see targets/gym.py), so ELBO LEVELS are not comparable to the
     # reference cell-18 lorenz row (87502..-3745, its own data); the grid

@@ -87,13 +87,6 @@ RECIPES = {
             "pretrain_mfvi": True,
             "lr": 1e-4,
             "n_samples": 500,
-            # 1600-D net: fused KL training needs the bf16 split backward
-            # (ops/pallas_kl.py net_grads_outside + net_compute_dtype).
-            # At this recipe's N=20 the driver now picks the XLA scan
-            # anyway — measured faster below the fused path's N~100
-            # crossover (fused_train_recommended) — but the flag keeps the
-            # fused path selected if N is raised.
-            "bf16_fused_net": True,
         },
         ln_z_true=None,
         ln_z_tol=None,
@@ -106,7 +99,7 @@ RECIPES = {
         elbo_floor=400.0,
     ),
     # README.md 40-GMM KL recipe with the PIS ("dds") net — the reference's
-    # own published flag set; runs on the fused KL (BPTT) kernel path.
+    # own published flag set (KL loss, full BPTT through the scan).
     "many_gmm_kl_dds": dict(
         flags={
             "model": "many_gmm",
@@ -132,7 +125,7 @@ RECIPES = {
     # default is 150k (src/configs/base.py:109); 5000 under-trains this
     # 40-mode KL objective past the 0.25-nat check (round-4 regression run:
     # ln Z -0.343 +- 0.60 at 5k) — budgeted at 40k like the VarGrad
-    # flagship entry (~4 min fused).
+    # flagship entry.
     "many_gmm_kl": dict(
         flags={
             "model": "many_gmm",
@@ -303,7 +296,8 @@ def run_recipe(name: str):
     for k, v in spec["flags"].items():
         setattr(config, k, v)
     results = run_experiment(config)
-    print(f"[{name}] results:", results)
+    print(f"[{name}] results:",
+          {k: v for k, v in results.items() if isinstance(v, float)})
     record = check_recipe(name, results)
     for c in record["checks"]:
         if "floor" in c:

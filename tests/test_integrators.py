@@ -230,7 +230,8 @@ def test_uha_lfsteps_and_delta_h():
     assert z.shape == (n, dim)
 
 
-def test_remat_steps_gradients_match():
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_remat_steps_gradients_match(mode):
     """jax.checkpoint over bridge steps must not change KL gradients —
     only the backward-pass memory profile (SURVEY.md §7 hard part 3)."""
     import jax.flatten_util
@@ -240,7 +241,7 @@ def test_remat_steps_gradients_match():
     grads = {}
     for remat in (False, True):
         setup = bounds.CMCDSetup(
-            mode="MCD_CAIS_sn", dim=dim, nbridges=6, emb_dim=8, remat_steps=remat
+            mode=mode, dim=dim, nbridges=6, emb_dim=8, remat_steps=remat
         )
         params, ctx = bounds.initialize(
             setup, target.log_prob, eps=0.05, trainable=("eps", "vd")
@@ -256,3 +257,43 @@ def test_remat_steps_gradients_match():
     onp.testing.assert_allclose(
         onp.asarray(grads[False]), onp.asarray(grads[True]), rtol=1e-5, atol=1e-6
     )
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_injected_noise_reproduces_the_prng_stream(mode):
+    """Each family's `noise` argument, filled with the normals its PRNG path
+    draws (per-step fold_in keys; underdamped/UHA also the initial momentum
+    at index nbridges), gives the same trajectory and log-weights."""
+    from cmcd_tpu import integrators
+    from cmcd_tpu.integrators import overdamped as od
+    from cmcd_tpu.integrators import underdamped as ud
+    from cmcd_tpu.integrators.base import step_keys
+    from cmcd_tpu.integrators.uha import evolve_uha
+    from cmcd_tpu.schedules import betas_from_grid
+
+    dim, n, k = 2, 16, 4
+    target = std_normal_target(dim)
+    setup = make_setup(mode, dim=dim, nbridges=k)
+    params, ctx = bounds.initialize(setup, target.log_prob, eps=0.05)
+    p = bounds.merged_params(params)
+    betas = betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
+    key = jax.random.PRNGKey(4)
+    z0 = jax.random.normal(jax.random.PRNGKey(5), (n, dim))
+    steps = [jax.random.normal(step_keys(key, i)[0], (n, dim)) for i in range(k)]
+
+    if mode in integrators._OVERDAMPED:
+        spec = integrators._OVERDAMPED[mode]
+        run = lambda noise: od.evolve_overdamped(key, z0, betas, p, ctx, spec, noise)
+        noise = jnp.stack(steps)
+    else:
+        first = jax.random.normal(jax.random.fold_in(key, k), (n, dim))
+        noise = jnp.stack([first] + steps)
+        if mode == "UHA":
+            run = lambda noise: evolve_uha(key, z0, betas, p, ctx, noise)
+        else:
+            spec = integrators._UNDERDAMPED[mode]
+            run = lambda noise: ud.evolve_underdamped(key, z0, betas, p, ctx, spec, noise)
+    z_a, w_a, _ = run(None)
+    z_b, w_b, _ = run(noise)
+    onp.testing.assert_allclose(onp.asarray(z_a), onp.asarray(z_b), rtol=1e-6, atol=1e-6)
+    onp.testing.assert_allclose(onp.asarray(w_a), onp.asarray(w_b), rtol=1e-6, atol=1e-5)

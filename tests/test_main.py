@@ -26,7 +26,6 @@ def tiny_config(**overrides):
     config.pretrain_mfvi = False
     config.n_samples = 64
     config.n_input_dist_seeds = 2
-    config.use_pallas_eval = False
     for k, v in overrides.items():
         setattr(config, k, v)
     return config

@@ -128,6 +128,7 @@ def test_run_all_merge_splices_subset(tmp_path, monkeypatch):
 
 
 @pytest.mark.recipes
+@pytest.mark.slow
 @pytest.mark.parametrize("name", sorted(RECIPES))
 def test_run_recipe_full_scale(name, tmp_path):
     from experiments.recipes import run_recipe

@@ -1,12 +1,14 @@
 """Multi-chip sharding tests on the 8-device virtual CPU mesh."""
 
 import jax
+import jax.flatten_util
 import jax.numpy as jnp
 import numpy as onp
 import pytest
 
 from cmcd_tpu import bounds
 from cmcd_tpu import parallel
+from cmcd_tpu.integrators import ALL_MODES
 from cmcd_tpu.targets.base import Target
 
 
@@ -49,27 +51,47 @@ def test_sharded_lnz_matches_tolerance(mesh):
     assert abs(ln_z) < 0.05
 
 
-def test_sharded_loss_gradients_match_single_device_statistics(mesh):
-    """The sharded KL loss and its gradient agree with the unsharded path in
-    expectation; with identical per-device streams they can't be bitwise
-    equal, so compare optimizer-relevant statistics over several keys."""
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_sharded_loss_gradients_match_single_device_statistics(mode):
+    """The chain-sharded train loss on 4 devices equals the same 4 chain
+    shards (same fold_in(key, shard) streams) computed one after another on
+    one device (the CPU twin of chip_smoke.py phase 6). Both run in float64:
+    the two programs fuse and sum in different orders, which in float32
+    moves a cancelling sum (UHA's log-weights at target == q) by ~1e-6; in
+    float64 every difference left is below 1e-12."""
     target = std_normal_target(2)
-    setup = bounds.CMCDSetup(mode="MCD_ULA", dim=2, nbridges=4)
+    setup = bounds.CMCDSetup(mode=mode, dim=2, nbridges=4, emb_dim=8)
+    trainable = bounds.default_trainable(mode)
     params, ctx = bounds.initialize(
-        setup, target.log_prob, eps=0.05, trainable=("eps", "vd")
+        setup, target.log_prob, eps=0.05, trainable=trainable
     )
-    sharded_loss = parallel.sharded_loss_for_mode(setup.mode, mesh)
+    mesh4 = parallel.make_chain_mesh(4)
+    key = jax.random.PRNGKey(5)
 
-    def stats(loss_fn):
-        vals = []
-        for s in range(8):
-            v, _ = loss_fn(params, jax.random.PRNGKey(s), 1024, ctx, setup)
-            vals.append(float(v))
-        return onp.mean(vals)
+    def value_and_grad(loss_fn, train):
+        def loss(tr):
+            return loss_fn(
+                {"train": tr, "notrain": params["notrain"]}, key, 64, ctx, setup
+            )
 
-    a = stats(lambda *args: sharded_loss(*args))
-    b = stats(bounds.kl_bound)
-    assert abs(a - b) < 0.02
+        (l, (neg_elbos, _)), g = jax.value_and_grad(loss, has_aux=True)(train)
+        return l, neg_elbos, jax.flatten_util.ravel_pytree(g)[0]
+
+    with jax.enable_x64(True):
+        params = jax.tree_util.tree_map(lambda x: x.astype(jnp.float64), params)
+        l_s, ne_s, g_s = jax.jit(lambda tr: value_and_grad(
+            parallel.sharded_loss_for_mode(mode, mesh4), tr))(params["train"])
+        l_1, ne_1, g_1 = jax.jit(lambda tr: value_and_grad(
+            parallel.sequential_loss_for_mode(mode, 4), tr))(params["train"])
+    assert ne_s.dtype == jnp.float64
+    assert len(ne_s.sharding.device_set) == 4
+    onp.testing.assert_allclose(
+        onp.asarray(ne_s), onp.asarray(ne_1), rtol=0, atol=1e-12
+    )
+    onp.testing.assert_allclose(float(l_s), float(l_1), rtol=1e-12)
+    onp.testing.assert_allclose(
+        onp.asarray(g_s), onp.asarray(g_1), rtol=1e-10, atol=1e-12
+    )
 
 
 def test_sharded_training_step_runs(mesh):

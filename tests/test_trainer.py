@@ -276,3 +276,19 @@ def test_evaluate_protocol():
     # Gaussian target with matched q: lnZ ~ 0 tightly.
     assert abs(out["final_ln_Z"]) < 0.05
     assert out["final_elbo"] <= 0.01
+
+
+def test_train_times_each_jitted_call():
+    """One host-clock entry per jitted call; the first includes compilation,
+    which chip_smoke.py reads as first minus a steady call."""
+    target = shifted_normal_target(dim=2, mean=1.0)
+    setup = bounds.CMCDSetup(mode="MCD_ULA", dim=2, nbridges=2)
+    params, ctx = bounds.initialize(setup, target.log_prob, eps=0.05)
+    result = train(
+        setup, params, ctx, lr=1e-3, iters=12, batch_size=8,
+        key=jax.random.PRNGKey(0), trainable=("eps",), steps_per_call=4,
+    )
+    assert result.steps_per_call == 4
+    assert len(result.chunk_seconds) == 3
+    assert all(t > 0 for t in result.chunk_seconds)
+    assert result.chunk_seconds[0] > result.chunk_seconds[-1]
